@@ -1,11 +1,12 @@
-"""navierstokessolver_tpu: a TPU-native incompressible Navier-Stokes engine.
+"""navierstokessolver_tpu: an incompressible Navier-Stokes engine in JAX.
 
-Brand-new jax/XLA/Pallas implementation of the capabilities of the reference
+A jax/XLA implementation of the capabilities of the reference
 solver `shivams15/navierstokessolver` (see SURVEY.md; the reference mount was
 empty this session, so parity targets come from the driver's BASELINE.json
 capability spec): staggered MAC grid, no-slip/moving-lid/inflow/outflow/
 obstacle BCs, Chorin projection with Jacobi/Gauss-Seidel/SOR/CG pressure
-solvers, jit-scanned step loop, domain-decomposed multi-chip sharding.
+solvers, jit-scanned step loop, domain-decomposed multi-device sharding. It runs
+on NVIDIA GPUs (tests on the CPU); the package name is historical.
 """
 
 from . import adjoint

@@ -2,7 +2,7 @@
 
 The iterative Poisson solvers run inside ``lax.while_loop``, which JAX
 cannot reverse-differentiate, and unrolling an O(100)-iteration Krylov/
-relaxation tape would be both wrong-sized for TPU memory and numerically
+relaxation tape would be both wrong-sized for device memory and numerically
 fragile. Instead this module exploits that the *converged* pressure is the
 solution of a LINEAR system:
 
@@ -33,8 +33,7 @@ tol (and f64 on CPU) when validating against finite differences.
 
 Capability note: the reference class has no differentiable solver
 (SURVEY.md SS2; the reference mount is empty -- no file:line citation is
-possible). This is the driver-sanctioned TPU-native capability beyond it
-(VERDICT r2, missing item 1).
+possible). This is a capability beyond it.
 
 Scope (what differentiates, and at what cost):
 
@@ -49,21 +48,6 @@ poisson_comm="halo"   yes        FD-validated; the backward solve reuses
 forcing fields        yes        the per-face arrays ride _consts as
                                  traced jit args; grad flows into them
 BC values / dt        yes        traced scalars (lid-recovery test)
-fused Pallas kernels  yes        step-level custom VJP (fused_step):
-  (unsharded 2D/3D)              the fused whole-step kernels run the
-                                 FORWARD pass, the backward pass
-                                 differentiates the equivalent jnp step
-                                 (same math to kernel tolerance --
-                                 interpret-parity tested) with this
-                                 module's IFT pressure solve inside.
-                                 Gradients agree with the jnp path to
-                                 the tolerance the primals do.
-sharded fused tiers   yes        scan-level custom VJP (fused_scan_
-  (slab + pencil)                sharded): the sharded fused whole-step
-                                 scan runs the FORWARD pass; the
-                                 backward differentiates the jnp GSPMD
-                                 scan (per-step remat via jax.checkpoint,
-                                 IFT pressure solves inside)
 cut-cell / IBM        forward    geometry arrays get zero cotangents
                       only       (case geometry, never differentiated)
 ====================  =========  =======================================
@@ -83,11 +67,8 @@ def differentiable(sim):
 
     ``jax.grad`` then flows through ``sim.step`` / ``sim.run_scan`` (e.g.
     with respect to the initial state, forcing arrays, or time-dependent BC
-    parameters closed over via ``lambda t: param``). Unsharded runs whose
-    base configuration passes a fused whole-step gate keep the fused Pallas
-    kernels for the FORWARD pass via the step-level custom VJP
-    (:func:`fused_step`); everything else (and every backward pass) uses
-    the jnp step, whose pressure solves carry the IFT custom VJP.
+    parameters closed over via ``lambda t: param``); the step's pressure
+    solves carry the IFT custom VJP.
     """
     if sim.diff_solve:
         return sim
@@ -175,146 +156,3 @@ def _ift_bwd(shell, consts, cot):
 
 
 _ift_solve.defvjp(_ift_fwd, _ift_bwd)
-
-
-# -- step-level custom VJP: fused forward, jnp backward -----------------------
-#
-# The fused whole-step Pallas kernels have no VJP rules, but they compute
-# the SAME projection step as Simulation._step_jnp (interpret-mode parity
-# tested for every composition the gates admit). So a differentiable run
-# whose base configuration takes a fused path uses the kernels for the
-# forward/primal pass and differentiates the jnp step in the backward pass
-# (rematerializing it from the step-entry state -- O(1) residual memory per
-# step, the standard remat trade). The pressure solve inside the backward
-# jnp step routes through the IFT custom VJP above (diff_solve=True), so no
-# while_loop is ever reverse-differentiated. Gradient error vs the pure-jnp
-# path is bounded by the primal fused-vs-jnp kernel tolerance.
-
-
-def fused_step(sim, state):
-    """One projection step of the differentiable ``sim``: fused kernels
-    forward, jnp-step VJP backward. Called from ``Simulation.step`` when
-    ``diff_solve`` is set and the non-differentiable base configuration
-    passes a fused whole-step gate (unsharded 2D/3D)."""
-    shell = getattr(sim, "_shell", sim)  # tracer-free diff template
-    consts = getattr(sim, "_consts_in", None)
-    if consts is None:  # direct .step() outside run_scan/_bind
-        consts = sim._consts()
-    base = base_of(shell)
-    if getattr(base, "_adjoint_diff", None) is None:
-        # backpointer for _fused_step_bwd (cached: stable static identity)
-        object.__setattr__(base, "_adjoint_diff", shell)
-    return _fused_step(base, consts, state)
-
-
-def _diff_leaf_ids(leaves):
-    return [
-        i for i, l in enumerate(leaves)
-        if jnp.issubdtype(jnp.result_type(l), jnp.inexact)
-    ]
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(0,))
-def _fused_step(base_shell, consts, state):
-    return base_shell._bind(consts).step(state)
-
-
-def _fused_step_fwd(base_shell, consts, state):
-    return base_shell._bind(consts).step(state), (consts, state)
-
-
-def _fused_step_bwd(base_shell, res, cot):
-    consts, state = res
-    diff_shell = base_shell._adjoint_diff
-    leaves, treedef = jax.tree_util.tree_flatten(consts)
-    didx = _diff_leaf_ids(leaves)
-
-    def f(diff_leaves, st):
-        full = list(leaves)
-        for i, leaf in zip(didx, diff_leaves):
-            full[i] = leaf
-        c = jax.tree_util.tree_unflatten(treedef, full)
-        return diff_shell._bind(c)._step_jnp(st)
-
-    _, vjp_fn = jax.vjp(f, [leaves[i] for i in didx], state)
-    cot_d, cot_state = vjp_fn(cot)
-    pos = {i: k for k, i in enumerate(didx)}
-    cot_leaves = [
-        cot_d[pos[i]] if i in pos else _zero_cot(jnp.asarray(l))
-        for i, l in enumerate(leaves)
-    ]
-    return jax.tree_util.tree_unflatten(treedef, cot_leaves), cot_state
-
-
-_fused_step.defvjp(_fused_step_fwd, _fused_step_bwd)
-
-
-# -- scan-level custom VJP: sharded fused scan forward, jnp GSPMD backward ----
-#
-# The sharded fused tiers (slab/pencil) are dispatched at the SCAN level
-# (run_scan_sharded_fused carries the internal per-shard layout across the
-# whole lax.scan), so the fused-forward trick moves up one level: the
-# custom VJP wraps the n-step scan. The backward pass differentiates the
-# jnp GSPMD scan of _step_jnp (1-vs-8 parity-tested against the fused
-# tiers), with jax.checkpoint on the step body so each step rematerializes
-# from its carry -- the same O(1)-residual-per-step trade fused_step makes.
-
-
-def fused_scan_sharded(sim, state, n_steps):
-    """``n_steps`` of the differentiable SHARDED ``sim``: slab/pencil
-    fused whole-step scan forward, jnp GSPMD scan VJP backward. Called
-    from solver._run_scan_jit when ``diff_solve`` is set and the
-    non-differentiable base passes the sharded fused gate."""
-    shell = getattr(sim, "_shell", sim)
-    consts = getattr(sim, "_consts_in", None)
-    if consts is None:  # direct call outside _run_scan_jit's _bind
-        consts = sim._consts()
-    base = base_of(shell)
-    if getattr(base, "_adjoint_diff", None) is None:
-        object.__setattr__(base, "_adjoint_diff", shell)
-    return _fused_scan_sharded(base, n_steps, consts, state)
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(0, 1))
-def _fused_scan_sharded(base_shell, n_steps, consts, state):
-    from .parallel.fused_sharded import run_scan_sharded_fused
-
-    sim = base_shell._bind(consts)
-    return run_scan_sharded_fused(sim, sim.shardings.p.mesh, state, n_steps)
-
-
-def _fused_scan_sharded_fwd(base_shell, n_steps, consts, state):
-    out = _fused_scan_sharded(base_shell, n_steps, consts, state)
-    return out, (consts, state)
-
-
-def _fused_scan_sharded_bwd(base_shell, n_steps, res, cot):
-    consts, state = res
-    diff_shell = base_shell._adjoint_diff
-    leaves, treedef = jax.tree_util.tree_flatten(consts)
-    didx = _diff_leaf_ids(leaves)
-
-    def f(diff_leaves, st):
-        full = list(leaves)
-        for i, leaf in zip(didx, diff_leaves):
-            full[i] = leaf
-        c = jax.tree_util.tree_unflatten(treedef, full)
-        sim = diff_shell._bind(c)
-
-        def body(s, _):
-            return sim._step_jnp(s)
-
-        return jax.lax.scan(jax.checkpoint(body), st, xs=None,
-                            length=n_steps)
-
-    _, vjp_fn = jax.vjp(f, [leaves[i] for i in didx], state)
-    cot_d, cot_state = vjp_fn(cot)
-    pos = {i: k for k, i in enumerate(didx)}
-    cot_leaves = [
-        cot_d[pos[i]] if i in pos else _zero_cot(jnp.asarray(l))
-        for i, l in enumerate(leaves)
-    ]
-    return jax.tree_util.tree_unflatten(treedef, cot_leaves), cot_state
-
-
-_fused_scan_sharded.defvjp(_fused_scan_sharded_fwd, _fused_scan_sharded_bwd)

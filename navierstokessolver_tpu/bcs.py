@@ -18,7 +18,7 @@ treatment is a pinned choice, documented here:
 
 All BC application is pure-functional (returns new arrays) so it composes
 with jit/scan/sharding. Pressure BCs are *folded into the Poisson operator
-coefficients* rather than applied per-sweep -- on TPU this keeps the inner
+coefficients* rather than applied per-sweep -- this keeps the inner
 relaxation loop a single fused stencil with no branching.
 """
 
@@ -126,9 +126,7 @@ def bcs_time_dependent(bcs: BCTable) -> bool:
 def bcs_values_traced(bcs: BCTable) -> bool:
     """True when any BC velocity entry is a non-concretizable (traced)
     scalar -- the shape a time-dependent run's :func:`resolve_bcs` output
-    takes inside ``jit``. The fused 3D whole-step streams such values
-    through its SMEM scalar vector (ops/pallas_kernels hoisting); every
-    other Pallas tier gates itself off on this predicate."""
+    takes inside ``jit``."""
     import jax
 
     return any(
@@ -196,8 +194,7 @@ def _set_face(arr: Array, axis: int, side: int, value) -> Array:
 
     Implemented with slice+concatenate, NOT ``.at[].set``: scatter ops are
     mis-partitioned under sharding constraints on this backend (verified by
-    a minimal repro; concat lowers to halo-free slicing and is exact), and
-    concat is the friendlier form for the TPU partitioner anyway.
+    a minimal repro; concat lowers to halo-free slicing and is exact).
     """
     nd = arr.ndim
     value = jnp.asarray(value, arr.dtype)

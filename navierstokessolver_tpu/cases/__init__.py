@@ -25,8 +25,7 @@ Beyond the BASELINE set:
                          box (scalar + obstacle + buoyancy); exact energy-
                          balance oracle
   oscillating_lid     -- cavity whose lid slides at cos(omega t): time-
-                         dependent BC VALUES resolved inside one scan;
-                         keeps the fused 3D whole-step (SMEM value hoist)
+                         dependent BC VALUES resolved inside one scan
 
 Each builder accepts overrides so tests can shrink grids.
 """

@@ -94,11 +94,9 @@ def build_oscillating_lid(
 ):
     """Oscillating-lid cavity: the top lid slides at lid*cos(omega t) --
     the canonical time-dependent-BC-VALUE configuration. The run stays one
-    jitted lax.scan (BC callables resolve against the carried State.t) and,
-    in 3D, KEEPS the fused whole-step kernels: the per-step resolved lid
-    value rides the kernels' SMEM scalar vector (round 4;
-    ops/pallas_kernels._hoist_tables). The unsteady boundary layer is a
-    Stokes layer of thickness sqrt(2 nu / omega)."""
+    jitted lax.scan (BC callables resolve against the carried State.t).
+    The unsteady boundary layer is a Stokes layer of thickness
+    sqrt(2 nu / omega)."""
     from . import Case
 
     import jax.numpy as jnp

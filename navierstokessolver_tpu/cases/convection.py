@@ -33,12 +33,14 @@ def build_heated_cavity(
     poisson_tol: float = 1e-5,
     poisson_iters: int = 2000,
     upwind_gamma: float = 0.0,
+    dtype=None,
     **params_kw,
 ):
     from . import Case
 
     nd = len(shape)
-    grid = GridSpec(shape=tuple(shape), lengths=(1.0,) * nd)
+    grid = GridSpec(shape=tuple(shape), lengths=(1.0,) * nd,
+                    dtype=dtype or jnp.float32)
     nu = math.sqrt(pr / ra)
     alpha = 1.0 / math.sqrt(ra * pr)
     zeros = (0.0,) * nd
@@ -105,6 +107,7 @@ def build_rayleigh_benard(
     poisson_iters: int = 2000,
     upwind_gamma: float = 0.0,
     perturb: float = 1e-2,
+    dtype=None,
     **params_kw,
 ):
     """Rayleigh-Benard convection: periodic in x, rigid no-slip walls in y,
@@ -114,7 +117,8 @@ def build_rayleigh_benard(
     grow and saturate (tests/test_scalar.py)."""
     from . import Case
 
-    grid = GridSpec(shape=tuple(shape), lengths=(aspect, 1.0))
+    grid = GridSpec(shape=tuple(shape), lengths=(aspect, 1.0),
+                    dtype=dtype or jnp.float32)
     nu = math.sqrt(pr / ra)
     alpha = 1.0 / math.sqrt(ra * pr)
     zeros = (0.0, 0.0)
@@ -141,7 +145,8 @@ def build_rayleigh_benard(
         buoyancy=(0.0, 1.0),
         theta_ref=0.5,
         upwind_gamma=upwind_gamma,
-        theta_init=(np.broadcast_to(cond, (nx, ny)) + seed).astype(np.float32),
+        theta_init=(np.broadcast_to(cond, (nx, ny)) + seed).astype(
+            np.dtype(grid.dtype)),
     )
     if dt is None:
         h = min(grid.spacing)
@@ -176,6 +181,7 @@ def build_heated_enclosure(
     poisson_tol: float = 1e-5,
     poisson_iters: int = 2000,
     upwind_gamma: float = 0.0,
+    dtype=None,
     **params_kw,
 ):
     """Natural convection from a hot inner cylinder in a cold square
@@ -192,7 +198,8 @@ def build_heated_enclosure(
     from .cylinder import cylinder_mask
 
     nd = len(shape)
-    grid = GridSpec(shape=tuple(shape), lengths=(1.0,) * nd)
+    grid = GridSpec(shape=tuple(shape), lengths=(1.0,) * nd,
+                    dtype=dtype or jnp.float32)
     nu = math.sqrt(pr / ra)
     alpha = 1.0 / math.sqrt(ra * pr)
     zeros = (0.0,) * nd

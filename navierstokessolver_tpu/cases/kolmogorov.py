@@ -10,9 +10,7 @@ steady solution
 
 stable at low Reynolds number (the tests' oracle) and unstable above
 ``Re ~ sqrt(2)`` in the standard normalization, giving sustained 2D
-turbulence. Exercises the spatially-varying forcing path end to end:
-the jnp predictor in 2D, the fused whole-step kernels' streamed
-per-face forcing volumes in 3D (solver._forcing_fields_internal).
+turbulence. Exercises the spatially-varying forcing path end to end.
 
 Normalization: ``Re = U_lam / (nu k_f)`` with ``U_lam = A/(nu k_f^2)``,
 i.e. ``Re = A / (nu^2 k_f^3)`` -- so given (re, amp, k_f):
@@ -42,6 +40,7 @@ def build_kolmogorov(
     poisson_tol: float = 1e-5,
     poisson_iters: int = 2000,
     upwind_gamma: float = 0.05,
+    dtype=None,
     **params_kw,
 ):
     """2D or 3D (len(shape) picks the rank) Kolmogorov flow in a [0, 2pi)^d
@@ -50,7 +49,8 @@ def build_kolmogorov(
 
     nd = len(shape)
     L = 2.0 * math.pi
-    grid = GridSpec(shape=tuple(shape), lengths=(L,) * nd)
+    grid = GridSpec(shape=tuple(shape), lengths=(L,) * nd,
+                    dtype=dtype or jnp.float32)
     bcs = {(a, s): BCSpec.periodic() for a in range(nd) for s in (0, 1)}
     kf = int(k_forcing)
     nu = math.sqrt(amp / (float(re) * kf ** 3))
@@ -62,8 +62,8 @@ def build_kolmogorov(
     fx = amp * np.sin(kf * yc)
     fshape = [1] * nd
     fshape[1] = -1
-    fx = np.broadcast_to(fx.reshape(fshape), grid.shape).astype(np.float32)
-    forcing = (jnp.asarray(fx),) + (None,) * (nd - 1)
+    fx = np.broadcast_to(fx.reshape(fshape), grid.shape)
+    forcing = (jnp.asarray(fx, grid.dtype),) + (None,) * (nd - 1)
 
     if dt is None:
         h = min(grid.spacing)

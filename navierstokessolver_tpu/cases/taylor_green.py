@@ -53,12 +53,14 @@ def build_taylor_green(
     poisson_tol: float = 1e-5,
     poisson_iters: int = 2000,
     upwind_gamma: float = 0.0,
+    dtype=None,
     **params_kw,
 ):
     from . import Case
 
     grid = GridSpec(
-        shape=tuple(shape), lengths=(2.0 * math.pi, 2.0 * math.pi)
+        shape=tuple(shape), lengths=(2.0 * math.pi, 2.0 * math.pi),
+        dtype=dtype or jnp.float32,
     )
     bcs = {
         (a, s): BCSpec.periodic() for a in range(2) for s in (0, 1)
@@ -124,6 +126,7 @@ def build_taylor_green3d(
     poisson_tol: float = 1e-5,
     poisson_iters: int = 2000,
     upwind_gamma: float = 0.0,
+    dtype=None,
     **params_kw,
 ):
     """3D Taylor-Green vortex (periodic box): the classic vortex-stretching
@@ -132,7 +135,8 @@ def build_taylor_green3d(
     energy / dissipation-rate history."""
     from . import Case
 
-    grid = GridSpec(shape=tuple(shape), lengths=(2.0 * math.pi,) * 3)
+    grid = GridSpec(shape=tuple(shape), lengths=(2.0 * math.pi,) * 3,
+                    dtype=dtype or jnp.float32)
     bcs = {(a, s): BCSpec.periodic() for a in range(3) for s in (0, 1)}
     nu = 1.0 / re
     if dt is None:

@@ -25,7 +25,7 @@ numerics); the reference mount was empty this session (SURVEY.md SS0) so
 there is no reference counterpart to cite -- this extends the SURVEY SS2
 "obstacle mask" row's accuracy beyond the reference class.
 
-TPU-first: apertures are computed ONCE at build time in numpy (clipped
+Design: apertures are computed ONCE at build time in numpy (clipped
 linear reconstruction of the SDF on a subcell lattice -- EXACT for planar
 cuts, O(1/k^2) worst-case on smooth curved boundaries, no geometry code
 on device);
@@ -36,7 +36,7 @@ same lax.while_loop solvers.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable
 
 import numpy as np
 
@@ -270,115 +270,3 @@ def cut_geometry(grid: GridSpec, sdf: Callable, k: int = 8):
             break
         fluid = new_fluid
     return tuple(ap), fluid, ~fluid
-
-
-# -- fused 3D whole-step composition (round 4) --------------------------------
-#
-# The fused kernels run the staircase-MASKED projection step on face codes
-# built from the cut-derived open/corr masks; outside the cut band (faces
-# with alpha strictly between 0 and 1) the binary-gated arithmetic is
-# IDENTICAL to the apertured one, so the composition reduces to boxed
-# wrapper fixups on the band's static bounding box:
-#   * band cells' FLUID bit is cleared in the KERNEL-ONLY padded code copy
-#     (solver._face_codes_3d): the predictor kernel then emits rhs = 0 for
-#     them and the corrector's |div| max excludes them (their BINARY
-#     divergence is O(u/h) even though the apertured one projects to ~0);
-#   * the wrapper REPLACES the box's Poisson RHS with the apertured
-#     divergence sum_a (alpha_hi u_hi - alpha_lo u_lo)/h_a of the post-IBM
-#     u* (fused_rhs_patch_cut; identical to the kernel's value at non-band
-#     fluid cells, zero at solid cells) -- the solve itself already runs
-#     the cut operator on the jnp side, between the two kernels;
-#   * the boxed apertured |div| max over the band folds back into the
-#     diagnostic (fused_div_max_cut).
-# The velocity correction needs NO fixup: cut-cell corrections are the
-# plain face gradient on every open interior face, exactly the CORR-bit
-# masked correction the kernels already apply.
-
-
-def fused_cut_consts(grid: GridSpec, ap, wet=None, margin: int = 1):
-    """Static constants for the fused composition: the cut band's cell
-    bounding box plus the boxed ``alpha`` per-face arrays (face slices
-    covering the box's cells). Returns None when any band cell sits
-    within ``margin`` of a domain face (the boxed face slices must stay
-    interior; comp 2's hi face must not be lane-elided) -- the caller
-    then keeps the jnp step.
-
-    ``wet``: moving-body IBM wet-face masks (per-comp face arrays). Wet
-    faces carry the body velocity and ride OPEN face codes, so the
-    kernel's BINARY divergence counts them with weight 1 while their
-    aperture is 0 -- cells touching one join the band (excluded
-    in-kernel, recomputed apertured in the box) even when none of their
-    faces is partially open."""
-    nd = grid.ndim
-    ap_np = [np.asarray(a, np.float64) for a in ap]
-    cutf = [(a > 0.0) & (a < 1.0) for a in ap_np]
-    if wet is not None:
-        for a in range(nd):
-            if wet[a] is not None:
-                cutf[a] |= np.asarray(wet[a]) > 0
-    band = np.zeros(grid.shape, bool)
-    for a in range(nd):
-        lo = [slice(None)] * nd
-        lo[a] = slice(0, -1)
-        hi = [slice(None)] * nd
-        hi[a] = slice(1, None)
-        band |= cutf[a][tuple(lo)] | cutf[a][tuple(hi)]
-    if not band.any():
-        return None  # all-0/1 apertures: staircase == cut, nothing to patch
-    idx = np.argwhere(band)
-    lo = idx.min(axis=0)
-    hi = idx.max(axis=0) + 1
-    if (lo < margin).any() or (hi > np.asarray(grid.shape) - margin).any():
-        return None
-    box = (tuple(int(x) for x in lo), tuple(int(x) for x in hi - lo))
-    alb = []
-    for a in range(nd):
-        sl = tuple(
-            slice(int(lo[d]), int(hi[d]) + (1 if d == a else 0))
-            for d in range(nd)
-        )
-        alb.append(ap_np[a][sl])
-    return box, tuple(alb), band
-
-
-def _boxed_face_slices(iu, box):
-    from jax import lax
-
-    (l0, l1, l2), (s0, s1, s2) = box
-    u0 = lax.slice(iu[0], (l0, l1, l2), (l0 + s0 + 1, l1 + s1, l2 + s2))
-    u1 = lax.slice(iu[1], (l0, l1, l2), (l0 + s0, l1 + s1 + 1, l2 + s2))
-    u2 = lax.slice(iu[2], (l0, l1, l2), (l0 + s0, l1 + s1, l2 + s2 + 1))
-    return u0, u1, u2
-
-
-def _boxed_weighted_div(grid: GridSpec, iu, w, box):
-    h = tuple(float(x) for x in grid.spacing)
-    u0, u1, u2 = _boxed_face_slices(iu, box)
-    f0, f1, f2 = w[0] * u0, w[1] * u1, w[2] * u2
-    return ((f0[1:] - f0[:-1]) * (1.0 / h[0])
-            + (f1[:, 1:] - f1[:, :-1]) * (1.0 / h[1])
-            + (f2[:, :, 1:] - f2[:, :, :-1]) * (1.0 / h[2]))
-
-
-def fused_rhs_patch_cut(grid: GridSpec, rhs, iu_star, alb, box,
-                        rho_over_dt):
-    """REPLACE the band box's rhs with the apertured divergence
-    (rho/dt) * sum_a (alpha_hi u_hi - alpha_lo u_lo)/h_a of the
-    internal-layout post-IBM u* (valid cells index exactly). The
-    predictor kernel emitted rhs = 0 for band cells (their FLUID bit is
-    cleared in the kernel's code copy); non-band fluid cells recompute to
-    the same value, solid cells to zero (closed apertures)."""
-    from jax import lax
-
-    dd = _boxed_weighted_div(grid, iu_star, alb, box)
-    return lax.dynamic_update_slice(rhs, rho_over_dt * dd, box[0])
-
-
-def fused_div_max_cut(grid: GridSpec, iu_new, alb, box):
-    """max |apertured div| over the band box of the corrected field --
-    folded into the kernel's diagnostic, whose own max excluded band
-    cells via the FLUID bit. Solid cells contribute zero (all their
-    apertures are closed)."""
-    import jax.numpy as jnp
-
-    return jnp.max(jnp.abs(_boxed_weighted_div(grid, iu_new, alb, box)))

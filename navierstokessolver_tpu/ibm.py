@@ -19,7 +19,7 @@ treatment unchanged (the masked Poisson operator / correction masks from
 the staircase cell mask stay exactly as they are -- blocked faces stay
 zero, so the projection's compatibility condition is untouched).
 
-TPU-first design: everything data-dependent happens at BUILD time in
+Design: everything data-dependent happens at BUILD time in
 numpy (normal directions, neighbor choice, interpolation weights); the
 per-step apply is a handful of dense masked multiply-adds and axis rolls
 -- no gathers, no dynamic shapes, fully fusable by XLA and trivially
@@ -66,14 +66,8 @@ class IBMForcing:
     ub: Optional[tuple[Array, ...]] = None     # [comp] surface velocity
     wet: Optional[tuple[Array, ...]] = None    # [comp] wet-solid masks
     ub_wet: Optional[tuple[Array, ...]] = None
-    # Computed at BUILD time (static): the band and every interpolation
-    # neighbor sit >= 2 faces from all domain boundaries, so the fused-3D
-    # internal-layout apply (internal_forcing) never reads an elided or
-    # padded face. Gates solver._fused3d_ok for IBM runs.
-    fused_ok: bool = False
     # Per-comp static bounding boxes ((lo...), (size...)) of the band+wet
-    # support, 1-cell margin, lane/sublane-aligned (round 4 perf): the
-    # apply is a handful of dense FMAs whose support is a THIN SHELL
+    # support, 1-cell margin: the apply is a handful of dense FMAs whose support is a THIN SHELL
     # around the body -- restricting it to the box turns ~20 full-volume
     # HBM passes into box-sized ones (a D=64 body in a 512x256x256 domain
     # is ~100x less traffic). None = full-volume apply (box nearly covers
@@ -338,20 +332,8 @@ def build_ibm(
 
     if not any_band:
         return None
-    # fused-path gate: band strictly interior (2-face margin along every
-    # axis) -- computed here on the concrete numpy masks because the gate
-    # is consulted inside jit where the arrays are tracers
-    fused_ok = True
-    for a in range(nd):
-        band_np = np.asarray(band_all[a]) > 0
-        for ax in range(nd):
-            sl = [slice(None)] * nd
-            sl[ax] = [0, 1, -2, -1]
-            if band_np[tuple(sl)].any():
-                fused_ok = False
     # Static per-comp band bounding boxes (1-face margin for the apply's
-    # unit rolls; lane/sublane-aligned so the dynamic slices stay on tile
-    # boundaries). Skipped when the shell covers most of the domain.
+    # unit rolls). Skipped when the shell covers most of the domain.
     boxes = []
     frac_max = 0.0
     for a in range(nd):
@@ -365,11 +347,8 @@ def build_ibm(
         nzs = np.nonzero(supp)
         lo, hi = [], []
         for ax in range(nd):
-            align = 128 if ax == nd - 1 else (8 if ax == nd - 2 else 1)
             l = max(int(nzs[ax].min()) - 1, 0)
             hh = min(int(nzs[ax].max()) + 2, shape[ax])
-            l = (l // align) * align
-            hh = min(-(-hh // align) * align, shape[ax])
             lo.append(l)
             hi.append(hh)
         size = tuple(h_ - l_ for l_, h_ in zip(lo, hi))
@@ -386,79 +365,5 @@ def build_ibm(
         ub=tuple(ub_all) if velocity is not None else None,
         wet=tuple(wet_all) if velocity is not None else None,
         ub_wet=tuple(ubwet_all) if velocity is not None else None,
-        fused_ok=fused_ok,
         box=box,
     )
-
-
-def internal_forcing(grid: GridSpec, ibm: IBMForcing,
-                     tile: int = 8) -> IBMForcing:
-    """The operator's operands re-padded to the fused-3D internal layout
-    (ops/pallas_kernels.to_internal_3d conventions), so ``apply`` runs
-    directly on the scan-carried internal velocity arrays. Valid only for
-    ``ibm.fused_ok`` bands (strictly interior): rolls then never read the
-    lane-elided comp-2 face or a pad slot at a masked position. All-append
-    pads of loop-invariant jit arguments -- XLA hoists the conversion out
-    of the scan."""
-    import jax.numpy as jnp
-
-    from .ops import pallas_kernels as pk
-
-    n0, n1, n2 = grid.shape
-    T, G, RP, S0, S1, L = pk._fused_dims(grid, tile)
-
-    def pad_comp(a, x):
-        if a == 0:
-            return jnp.pad(x, [(0, RP - (n0 + 1)), (0, S0 - n1),
-                               (0, L - n2)])
-        if a == 1:
-            return jnp.pad(x, [(0, RP - n0), (0, S1 - (n1 + 1)),
-                               (0, L - n2)])
-        return jnp.pad(x[:, :, :n2], [(0, RP - n0), (0, S0 - n1),
-                                      (0, L - n2)])
-
-    def pad_opt(t):
-        return (None if t is None
-                else tuple(pad_comp(a, x) for a, x in enumerate(t)))
-
-    return IBMForcing(
-        ndim=3,
-        dirs=ibm.dirs,
-        masks=tuple(
-            tuple(pad_comp(a, m) for m in ibm.masks[a]) for a in range(3)
-        ),
-        w=tuple(pad_comp(a, ibm.w[a]) for a in range(3)),
-        band=tuple(pad_comp(a, ibm.band[a]) for a in range(3)),
-        # moving boundaries: the surface/wet velocities ride the same
-        # internal layout, so apply()/apply_wet() work on the carried
-        # scan state directly (round 4, VERDICT r3 item 5)
-        ub=pad_opt(ibm.ub),
-        wet=pad_opt(ibm.wet),
-        ub_wet=pad_opt(ibm.ub_wet),
-        fused_ok=ibm.fused_ok,
-        # the internal layout keeps row r <-> global row r (sublane/lane
-        # identity too), so the static band box carries over; pad regions
-        # a rounded box may graze hold zero masks (apply = identity there)
-        box=ibm.box,
-    )
-
-
-def fused_rhs_patch(grid: GridSpec, rhs: Array, iu_star, iu_forced,
-                    rho_over_dt, fluid: Array) -> Array:
-    """Patch the fused predictor's Poisson RHS for the IBM velocity delta:
-    rhs += (rho/dt) * div(u_forced - u*) * fluid. The delta is supported
-    on the forcing band only (dense-stored); comp 2's elided hi face
-    carries zero delta by the fused_ok gate."""
-    import jax.numpy as jnp
-
-    n0, n1, n2 = grid.shape
-    h = grid.spacing
-    d0 = iu_forced[0] - iu_star[0]
-    d1 = iu_forced[1] - iu_star[1]
-    d2 = (iu_forced[2] - iu_star[2])[:n0, :n1, :n2]
-    dd = (d0[1:n0 + 1, :n1, :n2] - d0[:n0, :n1, :n2]) / h[0]
-    dd = dd + (d1[:n0, 1:n1 + 1, :n2] - d1[:n0, :n1, :n2]) / h[1]
-    zlast = jnp.zeros((n0, n1, 1), d2.dtype)
-    d2s = jnp.concatenate([d2[:, :, 1:], zlast], axis=2)
-    dd = dd + (d2s - d2) / h[2]
-    return rhs + rho_over_dt * dd * fluid

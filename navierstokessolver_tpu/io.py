@@ -2,7 +2,7 @@
 
 Capability parity: the reference's periodic field dumps for visualization
 (SURVEY.md SS2 "Snapshot I/O", SS3.3) plus checkpoint/resume (SURVEY.md SS5).
-TPU-first design: the step loop never blocks on disk -- snapshots are
+Design: the step loop never blocks on disk -- snapshots are
 enqueued as device arrays and a host writer thread performs the
 device->host copy and serialization concurrently with the next `run_scan`
 chunk (dispatch-ahead; BASELINE.json north star "without stalling the step

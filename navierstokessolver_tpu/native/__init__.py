@@ -1,6 +1,6 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-The compute path is jax/XLA/Pallas; the serialization hot loops around it
+The compute path is jax/XLA; the serialization hot loops around it
 are native C++ (csrc/), compiled on demand with g++ into a cached shared
 library. Everything here degrades gracefully: if the toolchain or the build
 is unavailable, callers fall back to the pure-Python implementations.
@@ -16,7 +16,11 @@ import threading
 from typing import Optional
 
 _SRC = os.path.join(os.path.dirname(__file__), "..", "..", "csrc")
-_CACHE = os.environ.get("NSTPU_NATIVE_CACHE", "/tmp/nstpu_native")
+# built into the checkout (listed in .gitignore), never outside it
+_CACHE = os.environ.get(
+    "NSTPU_NATIVE_CACHE",
+    os.path.join(os.path.dirname(__file__), "..", "..", ".native_build"),
+)
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False

@@ -1,9 +1,8 @@
-"""FFT-based DCT-II / inverse along one axis (TPU-friendly, jit/vmap-safe).
+"""FFT-based DCT-II / inverse along one axis (jit/vmap-safe).
 
 Building block for the direct spectral pressure solve (ops/fft_poisson.py).
 Uses the classic even-odd reordering so a length-n real DCT costs one
-length-n complex FFT (Makhoul 1980) -- all ops are slices/concats/FFTs that
-XLA maps well onto TPU.
+length-n complex FFT (Makhoul 1980) -- all ops are slices/concats/FFTs.
 
 Conventions (unnormalized, matching scipy.fft.dct type 2):
   DCT2(x)_k = 2 * sum_i x_i cos(pi k (2i+1) / (2n))
@@ -83,10 +82,8 @@ def idct2(X: Array, axis: int = -1) -> Array:
 def dct2_matrix(n: int) -> np.ndarray:
     """Dense DCT-II matrix: X = C @ x, C[k,i] = 2 cos(pi k (2i+1)/(2n)).
 
-    On TPU, applying the DCT as a matmul runs on the MXU and beats the
-    (complex-emulated) FFT path by a wide margin for n up to several
-    thousand -- the transform is where the FLOPs are, so feed the systolic
-    array (pallas_guide: MXU section).
+    The spectral solve applies the transforms as dense matmul chains
+    (ops/fft_poisson.py, matmul mode).
     """
     k = np.arange(n)[:, None]
     i = np.arange(n)[None, :]
@@ -114,7 +111,7 @@ def idct2_matrix(n: int) -> np.ndarray:
 # where D[r,j] = 2 cos(pi(2r+1)(2j+1)/(4m)) is twice the (orthogonal) DCT-IV
 # matrix, so D^{-1} = D^T / (2m) exactly. Unlike Lee's classic recursion
 # there is NO 1/(2cos) scaling -- every factor is bounded by 2, so the split
-# is as numerically stable as the dense matmul while halving the MXU work
+# is as numerically stable as the dense matmul while halving the matmul work
 # (two m x m matmuls instead of one n x n). The even half is itself a DCT-II
 # and recurses.
 # ---------------------------------------------------------------------------
@@ -129,7 +126,7 @@ def dct4_matrix_scaled(n: int) -> np.ndarray:
 
 def split_levels(n: int, min_base: int = 512) -> int:
     """Levels of radix splitting: halve while even and the base matmul stays
-    MXU-sized (>= min_base)."""
+    at least ``min_base`` wide."""
     lev = 0
     while n % 2 == 0 and n // 2 >= min_base:
         n //= 2
@@ -413,7 +410,7 @@ class Dct4SplitPlan:
         B[r] = sum_j b_j sin(pi r (2j+1)/(2m)), r=1..m  (DST-II_m kernel)
         X[2r] = A[r] + B[r],  X[2r+1] = A[r+1] - B[r+1]  (A[m] == 0)
 
-    Two m x m matmuls instead of one n x n -- an exact 2x MXU-MAC
+    Two m x m matmuls instead of one n x n -- an exact 2x MAC
     reduction with all factors bounded by 1 (the rotation is orthogonal),
     so it is as stable as the dense matmul. Outputs in BLOCK order
     [evens; odds]; :meth:`permutation` maps block order back to natural

@@ -5,7 +5,7 @@ Gauss-Seidel and SOR relaxation (SURVEY.md SS2, [VERIFIED-DRIVER]
 "Jacobi/Gauss-Seidel/SOR in the reference"), plus the driver-mandated
 matrix-free CG upgrade "with the same convergence semantics".
 
-Design notes (TPU-first):
+Design notes:
   * All boundary conditions and obstacle masks are *folded into static
     per-cell data* built once per case (Neumann at walls/inflow and at
     fluid/solid faces; homogeneous Dirichlet at outflow faces). The inner
@@ -13,13 +13,13 @@ Design notes (TPU-first):
     fully fusible by XLA.
   * The neighbor-coupling coefficients are **compressed to one uint8 "stencil
     code" per cell** (one presence bit per face + a fluid bit) and decoded on
-    the fly inside the fused kernels: a coupling is either ``1/h_a^2`` or 0,
+    the fly inside the stencil fusions: a coupling is either ``1/h_a^2`` or 0,
     so streaming six f32 coefficient arrays from HBM (the dominant traffic of
     a relaxation sweep -- these loops are bandwidth-bound) is replaced by one
     uint8 array at 1/24th the bytes. ``diag`` stays a real f32/f64 array
     because outflow faces add ``-2/h_a^2`` terms that don't fit a presence
-    bit. Red-black parity masks are likewise synthesized from ``iota`` inside
-    the kernel instead of streamed.
+    bit. Red-black parity masks are likewise synthesized from ``iota``
+    instead of streamed.
   * Gauss-Seidel/SOR use *red-black* coloring -- the parallelizable ordering
     with the same fixed point as the reference's (presumably lexicographic)
     sweeps; per-iteration trajectories differ, converged states match
@@ -448,7 +448,7 @@ class PoissonConfig:
     # Report the exact post-solve residual in StepDiagnostics for DIRECT
     # (fft) solves. The iterative solvers compute it anyway for their
     # stopping rule; the direct solve needs an extra operator application +
-    # norm reductions per step (~0.5 ms at 256^3) purely for reporting.
+    # norm reductions per step purely for reporting.
     # False -> diagnostics carry the sentinel -1.0 and callers that need
     # the number run one diagnostic step with it re-enabled.
     diag_residual: bool = True
@@ -662,7 +662,7 @@ def flexible_pcg(
     Runs on the negated system ``(-A) p = -b`` (SPD on the fluid subspace,
     constant mode deflated when singular), like ``_solve_cg``.
     ``precond(r)`` must approximate ``(-A)^{-1} r``; it may be inexact and
-    even nonsymmetric (an RB-smoothed V-cycle, a bf16 transform chain) --
+    even nonsymmetric (an RB-smoothed V-cycle, a reduced-precision transform chain) --
     the flexible beta ``z_new.(r_new - r)/(z.r)`` keeps CG convergent where
     standard PCG would stall. Stopping semantics match every other solver
     here: relative L2 of ``b - A p``; iters are CG iterations.

@@ -9,9 +9,9 @@ blended with first-order donor-cell upwinding* via ``upwind_gamma`` in [0, 1]
 (gamma = 0 -> pure central, the classic staggered-grid default; gamma > 0 for
 high-Re robustness).
 
-These jnp implementations are the permanent reference semantics; the fused
-Pallas kernels (ops/pallas_kernels.py) are validated against them
-(SURVEY.md SS5 "race detection / sanitizers" story).
+These jnp implementations are the step the solver runs on every backend,
+and the reference semantics any future hand-written kernel is validated
+against.
 
 All functions are shape-polymorphic over 2D/3D: velocity is a tuple of
 face-normal components, component ``a`` staggered along axis ``a``.
@@ -51,8 +51,7 @@ def _add_interior(arr: Array, axis: int, delta: Array) -> Array:
     """``arr[1:-1 along axis] += delta`` via slice+concat.
 
     Scatter (``.at[].add``) is avoided on purpose: it is mis-partitioned
-    under sharding constraints on this backend (see bcs._set_face note) and
-    concat maps better onto the TPU partitioner/Pallas anyway.
+    under sharding constraints (see bcs._set_face note).
     """
     nd = arr.ndim
     first = _sl(nd, axis, slice(0, 1))

@@ -129,16 +129,12 @@ class ShardedPoissonSolver:
                 (spec if l < split else P())
                 for l in range(len(mg.ops))
             ]
-            mg_local = dataclasses.replace(
-                mg, fused=False, use_pallas=False
-            )
-
             def body(b, p0, diag, code, levels):
                 ops_local = [
                     dataclasses.replace(o, diag=d, code=c)
-                    for o, (d, c) in zip(mg_local.ops, levels)
+                    for o, (d, c) in zip(mg.ops, levels)
                 ]
-                solver = dataclasses.replace(mg_local, ops=ops_local)
+                solver = dataclasses.replace(mg, ops=ops_local)
                 mg_solve = (solver.solve_pcg if cfg.method == "mgcg"
                             else solver.solve)
                 return mg_solve(b, p0, cfg.tol, cfg.max_iters,

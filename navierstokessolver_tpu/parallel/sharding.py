@@ -1,14 +1,12 @@
 """Domain decomposition over a device mesh (SURVEY.md SS2 "Parallelism" row).
 
-The reference is single-process; distribution is new, driver-mandated scope:
-"multi-chip runs shard the grid via domain decomposition with halo exchange
-over ICI" (BASELINE.json north star). TPU-first mechanism: annotate the grid
-axes with ``jax.sharding.NamedSharding`` and let XLA's SPMD partitioner
-insert the halo exchanges (collective-permutes over ICI) for every stencil,
-and ``psum`` for the global reductions inside the Poisson ``while_loop``.
-This is the scaling-book recipe: pick a mesh, annotate shardings, let XLA
-insert collectives. (An explicit Pallas remote-DMA halo pipeline is the
-planned optimization on top; the semantics live here.)
+The reference is single-process; distribution is new scope: multi-device
+runs shard the grid via domain decomposition with halo exchange. Mechanism:
+annotate the grid axes with ``jax.sharding.NamedSharding`` and let XLA's
+SPMD partitioner insert the halo exchanges (collective-permutes, which XLA
+hands to NCCL on GPUs) for every stencil, and ``psum`` for the global
+reductions inside the Poisson ``while_loop``. The explicit alternative is
+parallel/halo.py (shard_map + ppermute/psum/all_to_all).
 
 The spatial mesh axes are named ``sx, sy, sz`` -- the CFD analog of
 sequence/context parallelism (SURVEY.md SS5 "long-context" note): the grid is
@@ -99,25 +97,18 @@ def shard_state(state: State, mesh: Mesh, grid: GridSpec) -> State:
     return jax.device_put(state, shardings)
 
 
-def sharded_simulation(sim, mesh: Mesh, poisson_comm: str = "gspmd",
-                       rdma: bool = False):
+def sharded_simulation(sim, mesh: Mesh, poisson_comm: str = "gspmd"):
     """Return a copy of ``sim`` whose step constrains fields to the mesh.
 
     ``poisson_comm`` selects the distributed pressure-solve mechanism:
       * ``"gspmd"`` (default): XLA's SPMD partitioner inserts the halo
         collectives for every stencil in the Poisson while_loop;
       * ``"halo"``: the explicit shard_map + ppermute solver
-        (parallel/halo.py) -- hand-written ring halos over ICI + psum
-        reductions, same convergence semantics (one shared implementation).
+        (parallel/halo.py) -- hand-written ring halos + psum reductions,
+        same convergence semantics (one shared implementation).
         Requires an iterative method (jacobi/gs/sor/cg/mg/mgcg; the
         multigrid V-cycle runs fine levels block-local with ppermute
         ghosts and gathers the tiny coarse levels).
-
-    ``rdma=True`` (round 5): when the slab fused whole-step tier
-    dispatches, run its steady exchanges (velocity ghosts, shared face,
-    pressure halos) as kernel-initiated remote DMAs instead of
-    ppermutes (parallel/remote_dma.py) -- zero jnp-level ppermutes on
-    that path. Ignored where the tier doesn't apply.
     """
     import dataclasses
 
@@ -131,21 +122,10 @@ def sharded_simulation(sim, mesh: Mesh, poisson_comm: str = "gspmd",
         )
     elif poisson_comm != "gspmd":
         raise ValueError(f"unknown poisson_comm {poisson_comm!r}")
-    mg_solver = sim.mg_solver
-    if mg_solver is not None and (mg_solver.fused or mg_solver.use_pallas):
-        # The fused V-cycle level kernels (and the K-sweep kernel) are
-        # single-device pallas_calls; under GSPMD the partitioner cannot
-        # split them, so sharded runs take the jnp V-cycle (whose stencils
-        # GSPMD halo-exchanges automatically).
-        mg_solver = dataclasses.replace(
-            mg_solver, fused=False, use_pallas=False
-        )
     return dataclasses.replace(
         sim,
         shardings=state_shardings(mesh, sim.grid),
         halo_solver=halo_solver,
-        mg_solver=mg_solver,
-        rdma=rdma,
     )
 
 

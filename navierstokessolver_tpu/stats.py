@@ -1,8 +1,8 @@
 """Running flow statistics accumulated inside the jitted scan.
 
 Time-averaged fields and Reynolds stresses are the standard deliverable of
-an unsteady CFD run (turbulence, vortex shedding). The TPU-native shape of
-the problem: the accumulator is a pytree carried through ``lax.scan``
+an unsteady CFD run (turbulence, vortex shedding). The device-resident
+shape of the problem: the accumulator is a pytree carried through ``lax.scan``
 alongside the state, so collecting statistics costs a few fused elementwise
 passes per step and ZERO host round-trips; nothing is stacked per step
 (memory stays O(grid), independent of run length).
@@ -11,7 +11,7 @@ Numerics: Welford's incremental moments, not naive sums. A float32 running
 sum loses the new sample's low bits once ``n`` is large (the sum grows, the
 increment does not); Welford keeps the carried quantities at the scale of
 the fields themselves, so million-step averages stay accurate in f32 --
-the dtype the TPU path runs in.
+the dtype the device path runs in.
 
 Update (per step, per field):
     d1    = x - mean            # deviation from OLD mean

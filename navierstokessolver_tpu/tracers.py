@@ -5,7 +5,7 @@ the resolved velocity field. Capability extension beyond the reference
 scope (the reference mount was empty -- SURVEY.md SS0): tracers are the
 standard companion feature of any production solver's snapshot pipeline.
 
-TPU-native design: particle positions live on device as one ``(n, nd)``
+Design: particle positions live on device as one ``(n, nd)``
 array; interpolation is a fully vectorized 2^nd-corner gather (XLA lowers
 it to a batched dynamic-gather, no host loops), and the RK2 advection rides
 inside the same jitted ``lax.scan`` as the flow step

@@ -1,37 +1,38 @@
 """Persistent-compilation-cache setup shared by every entry point.
 
-Two box-specific hazards this centralizes (see tests/conftest.py for the
-forensic history):
-
-1. The ``zstandard`` C extension segfaults compressing/decompressing
-   large executables on this machine. jax falls back to zlib when the
-   module is absent, so we force that fallback.
-2. A zstandard crash mid-``put`` tears the cache entry on disk, and a
-   torn serialized executable then segfaults XLA's
-   ``deserialize_executable`` on every later read. Any process that ever
-   wrote a cache dir with zstandard active can therefore poison it for
-   all future readers -- which is why every writer must route through
-   this helper (zstandard disabled before first compile).
+The cache lives where ``JAX_COMPILATION_CACHE_DIR`` says when that is set;
+otherwise at the fixed ``<checkout>/.jax_cache`` (listed in .gitignore).
+The path is part of what makes a later process find an entry, so it is
+never derived from a temp directory, a pid or the clock.
 """
 
 from __future__ import annotations
 
+import os
 
-def setup(path: str = "/tmp/jax_cache") -> None:
-    """Enable the on-disk executable cache at ``path``, zlib-compressed."""
-    import resource
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
+
+def cache_dir() -> str:
+    """The directory the persistent compilation cache uses."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_DIR
+
+
+def setup() -> str:
+    """Enable the on-disk executable cache at :func:`cache_dir`; returns it.
+
+    Entries are zlib-compressed: the ``zstandard`` extension has crashed
+    on large executables, and a torn entry then crashes every later
+    reader, so every writer disables it before its first compile.
+    """
     import jax
     from jax._src import compilation_cache as _cc
 
-    # XLA CPU compiles sporadically segfault on this box with the default
-    # 8 MB stack (deep LLVM recursion); lift the limit before any compile
-    # thread spawns. See tests/conftest.py for the forensic history.
-    try:
-        resource.setrlimit(resource.RLIMIT_STACK,
-                           (resource.RLIM_INFINITY, resource.RLIM_INFINITY))
-    except (ValueError, OSError):
-        pass
+    path = cache_dir()
     jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     _cc.zstandard = None
+    return path

@@ -3,12 +3,13 @@
 
 Every phase of the projection step is wrapped in jax.named_scope
 (bcs / predictor / poisson / correction / diagnostics in solver.py), so the
-trace shows the per-phase breakdown on the device timeline.
+trace shows the per-phase breakdown on the device timeline; the script also
+prints the device time per phase (utils/profiling.py).
 
 Usage:
     python scripts/profile_trace.py --case cavity --nx 2048 --ny 2048 \
-        --steps 20 --out /tmp/nstpu_trace
-Then: tensorboard --logdir /tmp/nstpu_trace  (or open in Perfetto).
+        --steps 20 --out out/trace
+Then: tensorboard --logdir out/trace  (or open in Perfetto).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ def main() -> None:
     ap.add_argument("--re", type=float, default=10_000.0)
     ap.add_argument("--poisson", default="fft")
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--out", default="/tmp/nstpu_trace")
+    ap.add_argument("--out", default="out/trace")
     args = ap.parse_args()
 
     import jax
@@ -44,16 +45,32 @@ def main() -> None:
     case = make_case(
         name, shape=shape, re=args.re, poisson_method=args.poisson,
     )
+    from navierstokessolver_tpu import solver as solver_mod
+    from navierstokessolver_tpu.utils import profiling
+
     sim = case.sim
+    consts = sim._consts()
     state = case.initial_state()
+    # command buffers off: every kernel event then names its instruction
+    compiled = solver_mod._run_scan_jit.lower(
+        sim, consts, state, args.steps).compile(
+            compiler_options={"xla_gpu_enable_command_buffer": ""})
     # compile + warm outside the trace window
-    state, _ = sim.run_scan(state, args.steps)
+    state, _ = compiled(consts, state)
     jax.block_until_ready(state.p)
 
     with jax.profiler.trace(args.out):
-        state, diag = sim.run_scan(state, args.steps)
+        state, diag = compiled(consts, state)
         jax.block_until_ready(state.p)
     print(f"[profile] {args.steps} steps traced to {args.out}", file=sys.stderr)
+    prefix = ("/device:GPU" if jax.default_backend() == "gpu"
+              else "/host:CPU")
+    t = profiling.scope_device_times(args.out, compiled.as_text(),
+                                     plane_prefix=prefix,
+                                     module="jit__run_scan_jit")
+    for k, v in sorted(t.items()):
+        print(f"[profile] {k}: {v / args.steps * 1e3:.4f} ms/step",
+              file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -1,123 +1,107 @@
 #!/usr/bin/env python
-"""Roofline / MFU model for the flagship configs (VERDICT r4 item 5).
+"""Roofline model of the flagship configs against a device's published peaks.
 
-Models per-step HBM bytes and MXU FLOPs from the algorithm structure and
-compares against measured ms/step to locate each config on the v5e
-roofline. Pure arithmetic -- run anywhere; measured numbers are the
-PARITY.md captures (TPU v5e, warm cache; the flagship row is the
-process-variance band's floor).
+Models per-step device-memory bytes and transform FLOPs from the algorithm
+structure (the jnp step, spectral transforms at precision "highest", i.e.
+full f32 outside the tensor cores) and prints each config's lower bound on
+time. Measured times come from the command line, never from this file:
+
+    python scripts/roofline.py --kind "NVIDIA H100 80GB HBM3" \
+        --measured 2048_fft=1.66 --measured 256_fft=4.13
+
+(e.g. the ms/step lines of ``python chip_smoke.py``). Pure arithmetic --
+runs anywhere.
 
 Model assumptions (stated so the table is checkable):
   * elementwise chains fuse (XLA): each logical PASS reads its inputs
     once and writes its outputs once at f32 (4 B);
-  * stencil neighbor reads hit VMEM/cache (no re-reads);
-  * a dense axis-N transform of the whole grid costs 2*N*cells MACs and
-    one read+write pass; radix-split at L levels divides the MACs by
-    ~2^min(L,2) (block-diagonal fold; butterflies add bandwidth, folded
-    into the pass count) -- 2048-axis transforms run L4 ~= /4;
-  * f32-on-MXU precision 'high' = 3 bf16 passes, 'default' = 1;
-  * v5e peaks: 197 TFLOP/s bf16 MXU, 819 GB/s HBM.
+  * stencil neighbor reads come from cache (no re-reads);
+  * a dense axis-N transform of the whole grid costs 2*N*cells FLOPs and
+    one read+write pass; radix-split at L levels divides the FLOPs by
+    ~2^min(L,2) (block-diagonal fold) -- 2048-axis transforms run L4 ~= /4.
 """
 
-PEAK_FLOPS = 197e12     # bf16 MACs/s (1 MAC = 2 FLOP counted below)
-PEAK_BW = 819e9         # bytes/s
+from __future__ import annotations
 
+import argparse
+import os
+import sys
 
-def gb(x):
-    return x / 1e9
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def config_2048_fft():
     n = 2048
     cells = n * n
     arr = cells * 4
-    # passes: predictor(read u,v -> write u*,v*), div+rhs(read 2 -> write 1),
+    # predictor(read u,v -> write u*,v*), div+rhs(read 2 -> write 1),
     # residual (read p,rhs -> write r), correct (read 3 -> write 2)
     stencil_bytes = (4 + 3 + 3 + 5) * arr
-    # DCT refined solve: 2 chains (main+refine), 4 axis transforms each,
-    # each a read+write pass; MACs: 2*n*cells per transform / 4 (split L4)
+    # refined solve: 2 chains (main+refine), 4 axis transforms each
     chain_passes = 4
     dct_bytes = 2 * chain_passes * 2 * arr
-    t_mac = 2 * n * cells / 4          # MACs per transform (split L4)
-    # precision 'high' = 3 bf16 passes on main AND refine chains
-    dct_macs = (3 + 3) * chain_passes * t_mac
-    return dict(name="2048^2 cavity fft (config #4)", cells=cells,
-                bytes=stencil_bytes + dct_bytes, flops=2 * dct_macs,
-                measured_ms=1.61)
+    flops = 2 * chain_passes * 2 * n * cells / 4      # split L4
+    return dict(key="2048_fft", name="2048^2 cavity fft", cells=cells,
+                bytes=stencil_bytes + dct_bytes, flops=flops)
 
 
 def config_256_fft():
     n = 256
     cells = n ** 3
     arr = cells * 4
-    # fused whole-step kernels: predictor pass (read 3 comps -> write 3
-    # star comps + rhs), corrector pass (read 3 star + p -> write 3 + diag)
-    stencil_bytes = (3 + 4 + 4 + 3) * arr
-    # DCT: dense (no split at 256), 3 axes fwd + 3 inv per chain, 2 chains
+    # predictor (read 3 -> write 3), rhs (read 3 -> write 1), refinement
+    # residual (read 2 -> write 1), correction (read 4 -> write 3)
+    stencil_bytes = (6 + 4 + 3 + 7) * arr
+    # dense (no split below 1024): 3 axes fwd + 3 inv per chain, 2 chains
     chain_passes = 6
     dct_bytes = 2 * chain_passes * 2 * arr
-    t_mac = 2 * n * cells
-    dct_macs = (3 + 3) * chain_passes * t_mac
-    # + residual pass for refine
-    stencil_bytes += 3 * arr
-    return dict(name="256^3 cavity fft (config #5 single chip)",
-                cells=cells, bytes=stencil_bytes + dct_bytes,
-                flops=2 * dct_macs, measured_ms=7.07)
-
-
-def config_512_fft():
-    n = 512
-    cells = n ** 3
-    arr = cells * 4
-    stencil_bytes = (3 + 4 + 4 + 3 + 3) * arr
-    chain_passes = 6
-    dct_bytes = 2 * chain_passes * 2 * arr
-    t_mac = 2 * n * cells                      # no split below 1024
-    dct_macs = (3 + 3) * chain_passes * t_mac
-    return dict(name="512^3 cavity fft", cells=cells,
-                bytes=stencil_bytes + dct_bytes, flops=2 * dct_macs,
-                measured_ms=61.07)
+    flops = 2 * chain_passes * 2 * n * cells
+    return dict(key="256_fft", name="256^3 cavity fft", cells=cells,
+                bytes=stencil_bytes + dct_bytes, flops=flops)
 
 
 def config_sphere_dctcg():
     shape = (512, 256, 256)
     cells = shape[0] * shape[1] * shape[2]
     arr = cells * 4
-    # jnp step (the fused gate excludes 512-wide planes): predictor ~2
-    # passes per component + BC/mask passes; approximate the measured
-    # structure as pred (read 3 -> write 3) + div/rhs + correct + masks
-    stencil_bytes = (6 + 3 + 5 + 2) * arr
-    # dctcg: 1 Richardson sweep/step (PARITY) = 1 preconditioner
-    # application = capacitance path: TWO spectral chains + box work
-    # (box ~ 64^3*K negligible vs grid passes) + residual/norm passes
+    stencil_bytes = (6 + 4 + 7 + 2) * arr
+    # one Richardson sweep = one capacitance preconditioner application =
+    # TWO spectral chains + residual/norm passes
     chain_passes = 6
     dct_bytes = 2 * chain_passes * 2 * arr + 4 * arr
-    t_mac = 2 * 512 * cells / 3 + 2 * 256 * cells * 2 / 3  # axis mix
-    dct_macs = (3 + 3) * chain_passes * t_mac
-    return dict(name="512x256x256 sphere dctcg (production)",
-                cells=cells, bytes=stencil_bytes + dct_bytes,
-                flops=2 * dct_macs, measured_ms=31.7)
+    per_chain = 2 * cells * (512 + 256 + 256) * 2     # fwd + inv
+    flops = 2 * per_chain
+    return dict(key="sphere_dctcg", name="512x256x256 sphere dctcg",
+                cells=cells, bytes=stencil_bytes + dct_bytes, flops=flops)
 
 
-def main():
-    rows = [config_2048_fft(), config_256_fft(), config_512_fft(),
-            config_sphere_dctcg()]
-    print(f"{'config':44s} {'GB/step':>8s} {'GFLOP':>7s} "
-          f"{'t_bw':>6s} {'t_mxu':>6s} {'floor':>6s} {'meas':>7s} "
-          f"{'%SoL':>5s} {'bound':>5s}")
-    for r in rows:
-        t_bw = r["bytes"] / PEAK_BW * 1e3
-        t_mxu = r["flops"] / 2 / PEAK_FLOPS * 1e3   # MACs at peak
-        floor = max(t_bw, t_mxu)                     # perfect overlap
-        sol = floor / r["measured_ms"] * 100
-        bound = "HBM" if t_bw > t_mxu else "MXU"
-        print(f"{r['name']:44s} {gb(r['bytes']):8.2f} "
-              f"{r['flops']/1e9:7.0f} {t_bw:6.2f} {t_mxu:6.2f} "
-              f"{floor:6.2f} {r['measured_ms']:7.2f} {sol:5.1f} {bound:>5s}")
-    print("""
-t_bw/t_mxu/floor/meas in ms; %SoL = floor/measured (perfect-overlap
-speed-of-light fraction). See PARITY.md 'Roofline' for interpretation.""")
+def main(argv=None) -> int:
+    from navierstokessolver_tpu.utils.profiling import device_peaks
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kind", required=True,
+                    help="device kind, as jax.devices()[0].device_kind")
+    ap.add_argument("--measured", action="append", default=[],
+                    help="CONFIG=ms_per_step from a chip run")
+    args = ap.parse_args(argv)
+    peaks = device_peaks(args.kind)
+    measured = dict(m.split("=") for m in args.measured)
+    print(f"{'config':28s} {'GB/step':>8s} {'GFLOP':>7s} {'t_bw':>6s} "
+          f"{'t_f32':>6s} {'floor':>6s} {'meas':>7s} {'share':>6s} bound")
+    for r in (config_2048_fft(), config_256_fft(), config_sphere_dctcg()):
+        t_bw = r["bytes"] / peaks["hbm_bytes_s"] * 1e3
+        t_fl = r["flops"] / peaks["f32_flops"] * 1e3
+        floor = max(t_bw, t_fl)
+        meas = float(measured[r["key"]]) if r["key"] in measured else None
+        share = f"{floor / meas:6.3f}" if meas else "   n/a"
+        print(f"{r['name']:28s} {r['bytes'] / 1e9:8.2f} "
+              f"{r['flops'] / 1e9:7.0f} {t_bw:6.2f} {t_fl:6.2f} "
+              f"{floor:6.2f} {meas if meas else float('nan'):7.2f} {share} "
+              f"{'memory' if t_bw > t_fl else 'f32 FLOP/s'}")
+    print("\nms per step; share = floor / measured, against the published "
+          "peaks of", args.kind)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -3,8 +3,6 @@ geometry invariants, exact reduction to the staircase operator on aligned
 bodies, operator symmetry, and projection exactness with both velocity and
 pressure sharp. (The Cd convergence oracle lives in test_oracles.py.)"""
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 
@@ -117,7 +115,6 @@ def test_sharp_pressure_projection_exact():
     )
     sim = case.sim
     assert sim.op.ap is not None and sim.ibm is not None
-    assert not sim._fused2d_ok()
     st, d = sim.run_scan(case.initial_state(), 10)
     div = np.asarray(sim._div(st.u) * np.asarray(sim.op.fluid))
     # the last outlet columns carry the known post-correction zero-gradient
@@ -195,31 +192,3 @@ def test_apertures_second_order_on_circle():
     maxe = max(np.abs(cutcell.face_apertures(g, circ, k=4)[d]
                       - ref[d]).max() for d in range(2))
     assert maxe < 2e-3
-
-
-def test_cut_fused_gating():
-    """The fused 3D composition gates: a sharp-pressure sphere whose band
-    is strictly interior passes; cut + scalar stays jnp; the sharded
-    fused tier still refuses apertures. (Kernel-parity runs live in
-    test_fused_step.py -- heavy tier.)"""
-    from navierstokessolver_tpu.parallel.sharding import (
-        make_mesh, sharded_simulation,
-    )
-
-    case = make_case("sphere", shape=(32, 16, 16), lengths=(16.0, 8.0, 8.0),
-                     re=100.0, poisson_method="mg", ibm=True,
-                     sharp_pressure=True)
-    p = dataclasses.replace(case.sim.params, use_pallas=True)
-    sim = dataclasses.replace(case.sim, params=p, pallas_interpret=True)
-    assert sim.op.ap is not None
-    assert sim._fused3d_ok()
-    box, alb, band = sim._cut3d_np()
-    assert band.any()
-    lo, size = box
-    for d in range(3):
-        assert 1 <= lo[d] and lo[d] + size[d] <= sim.grid.shape[d] - 1
-        assert alb[d].shape[d] == size[d] + 1
-    import jax as _jax
-    if len(_jax.devices()) >= 2:
-        sh = sharded_simulation(sim, make_mesh(2))
-        assert not sh._fused3d_sharded_ok()

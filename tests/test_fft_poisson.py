@@ -224,30 +224,3 @@ def test_self_check_raises_when_dense_also_corrupt(monkeypatch):
     g = GridSpec(shape=(32, 32), lengths=(1.0, 1.0))
     with pytest.raises(RuntimeError, match="self-check failed"):
         DCTPoissonSolver.build(g, periodic=(False, False))
-
-
-def test_fused_trailing_direct_matches_chain_3d():
-    """The fused trailing-axes direct solve (ops/pallas_dct.py, round 5:
-    4 HBM passes instead of 6) computes the same operator as the
-    reversed-layout chain route, for pure-Neumann AND mixed
-    (Dirichlet-axis) kinds -- interpret mode, f32-noise tolerance."""
-    import jax
-
-    from navierstokessolver_tpu.ops import pallas_dct
-    from navierstokessolver_tpu.ops.fft_poisson import DCTPoissonSolver
-
-    rng = np.random.default_rng(7)
-    for kinds in (("nn", "nn", "nn"), ("nd", "nn", "per")):
-        g = GridSpec(shape=(16, 16, 128), lengths=(1.0, 1.0, 8.0))
-        solver = DCTPoissonSolver.build(g, kinds=kinds)
-        assert pallas_dct.direct_applicable(g.shape, g.dtype)
-        b = rng.standard_normal(g.shape).astype(np.float32)
-        if solver.singular:
-            b -= b.mean()
-        b = jnp.asarray(b)
-        prec = solver._prec(None, solver.precision)
-        ref = solver._inv(solver._fwd(b, prec) * solver.inv_eig, prec)
-        out = solver._direct_fused3d(b, prec, interpret=True)
-        scale = float(jnp.max(jnp.abs(ref))) + 1e-30
-        err = float(jnp.max(jnp.abs(out - ref))) / scale
-        assert err < 5e-4, (kinds, err)

@@ -1,5 +1,5 @@
 """Float64 validation mode (SURVEY.md SS6 fidelity ladder: bitwise-grade
-comparisons need f64 on CPU; TPU runs are f32 tolerance-grade).
+comparisons need f64 on CPU; device runs are f32 tolerance-grade).
 
 Runs in a subprocess because jax_enable_x64 is process-global."""
 
@@ -11,10 +11,8 @@ SCRIPT = r"""
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tests")
-# zstandard segfaults (and tears entries) on this box -- see conftest.py
-from jax._src import compilation_cache as _cc
-_cc.zstandard = None
+from navierstokessolver_tpu.utils import jaxcache
+jaxcache.setup()
 import json
 import jax.numpy as jnp
 import numpy as np

@@ -23,10 +23,8 @@ SCRIPT = r"""
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tests")
-# zstandard segfaults (and tears entries) on this box -- see conftest.py
-from jax._src import compilation_cache as _cc
-_cc.zstandard = None
+from navierstokessolver_tpu.utils import jaxcache
+jaxcache.setup()
 import json, sys
 import numpy as np
 import jax.numpy as jnp

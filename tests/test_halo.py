@@ -17,10 +17,9 @@ from navierstokessolver_tpu.ops.poisson import (
 from navierstokessolver_tpu.parallel import make_mesh
 from navierstokessolver_tpu.parallel.halo import ShardedPoissonSolver
 
-# Heavy tier (VERDICT r3 item 1): interpret-mode kernel-parity file,
-# measured 225s cold on the 1-core box (scripts/time_tests.py). Excluded
-# from the default quick suite; run `pytest -m heavy` before commits
-# touching the fused kernels or sharded tiers.
+# Heavy tier: compile-heavy shard_map solver programs, excluded from the
+# default quick suite; run `pytest -m heavy` before commits touching
+# parallel/halo.py.
 pytestmark = pytest.mark.heavy
 
 requires_8 = pytest.mark.skipif(

@@ -2,11 +2,8 @@
 exactness, a Couette oracle against the staircase treatment, and the
 solver integration."""
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from navierstokessolver_tpu import ibm as ibm_mod
 from navierstokessolver_tpu.bcs import (
@@ -165,16 +162,6 @@ def test_config_hash_includes_ibm():
     assert h0 != h1
 
 
-def test_ibm_gates_fused_paths():
-    case = make_case("cylinder", shape=(64, 32), lengths=(8.0, 4.0),
-                     center=(2.0, 2.003), poisson_method="mg", ibm=True)
-    sim = dataclasses.replace(
-        case.sim,
-        params=dataclasses.replace(case.sim.params, use_pallas=True),
-    )
-    assert not sim._fused2d_ok()
-
-
 def test_taylor_couette_annulus_exact():
     """Moving-boundary IBM: the annulus between a rotating inner cylinder
     (immersed, omega=1) and a stationary outer cylinder (immersed) has the
@@ -248,153 +235,3 @@ def test_rotating_cylinder_magnus_lift():
     # projection must absorb each step; a small residual interface
     # divergence (vs the solve tolerance) is inherent to direct forcing
     assert float(diag.max_div[-1]) < 5e-3
-
-
-def test_ibm_through_fused_3d_matches_jnp():
-    """VERDICT r2 item 7: sharp-interface IBM composes with the fused 3D
-    whole-step -- direct forcing applied between the kernels at the
-    internal-layout level, Poisson RHS patched with the band delta's
-    divergence. Interpret-mode trajectory parity vs the jnp step."""
-    import dataclasses
-
-    from navierstokessolver_tpu.cases import make_case
-
-    case = make_case(
-        "sphere", shape=(32, 16, 16), lengths=(8.0, 4.0, 4.0),
-        center=(2.0, 2.03, 1.97), re=100.0, poisson_method="mg",
-        poisson_extrapolate=0.0, ibm=True,
-    )
-    sim = case.sim
-    assert sim.ibm is not None and sim.ibm.fused_ok
-    st0 = case.initial_state()
-    ref, dref = sim.run_scan(st0, 8)
-
-    simp = dataclasses.replace(
-        sim, params=dataclasses.replace(sim.params, use_pallas=True),
-        pallas_interpret=True,
-    )
-    assert simp._fused3d_ok()
-    out, d = simp.run_scan(st0, 8)
-    for a in range(3):
-        np.testing.assert_allclose(
-            np.asarray(out.u[a]), np.asarray(ref.u[a]), atol=2e-5
-        )
-    np.testing.assert_allclose(np.asarray(out.p), np.asarray(ref.p),
-                               atol=2e-4)
-    np.testing.assert_array_equal(
-        np.asarray(d.poisson_iters), np.asarray(dref.poisson_iters)
-    )
-    assert float(d.max_div[-1]) < 5e-4
-
-
-def test_ibm_fused_gate_rejects_near_boundary_band():
-    """A body whose forcing band touches the outer two face layers keeps
-    the jnp step (the internal-layout rolls would read elided faces)."""
-    g3 = GridSpec(shape=(16, 16, 16), lengths=(1.0,) * 3)
-    bcs = no_slip_box(g3)
-    sdf = lambda x, y, z: np.sqrt(            # noqa: E731
-        (x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.08) ** 2) - 0.15
-    solid = ibm_mod.solid_from_sdf(g3, sdf)
-    from navierstokessolver_tpu.bcs import (
-        face_masks_from_solid,
-        periodic_axes,
-    )
-
-    fm = face_masks_from_solid(g3, solid, periodic_axes(g3, bcs))
-    op = ibm_mod.build_ibm(g3, bcs, sdf, fm)
-    assert op is not None and not op.fused_ok
-
-
-def _rotating_sphere_sim(integrator="euler", use_pallas=False):
-    """Rotating sphere (spin about axis 2) in a closed box: the flow is
-    driven entirely by the moving immersed surface."""
-    g = GridSpec(shape=(16, 16, 16), lengths=(1.0, 1.0, 1.0))
-    bcs = no_slip_box(g)
-    c = (0.5, 0.503, 0.497)
-    r = 0.18
-    omega = 1.0
-
-    def sdf(x, y, z):
-        return np.sqrt((x - c[0]) ** 2 + (y - c[1]) ** 2
-                       + (z - c[2]) ** 2) - r
-
-    def vel(x, y, z):
-        return (-omega * (y - c[1]), omega * (x - c[0]),
-                np.zeros_like(z))
-
-    params = SimParams(
-        dt=2e-3, nu=5e-3, integrator=integrator,
-        poisson=PoissonConfig(method="mg", tol=1e-6, max_iters=60,
-                              extrapolate=0.0),
-        use_pallas=use_pallas,
-    )
-    sim = Simulation.build(g, bcs, params, sdf=sdf, surface_velocity=vel)
-    if use_pallas:
-        sim = dataclasses.replace(sim, pallas_interpret=True)
-    return sim
-
-
-@pytest.mark.parametrize("integrator", ["euler", "rk2"])
-def test_moving_ibm_through_fused_3d_matches_jnp(integrator):
-    """MOVING-body IBM through the fused 3D whole-step (round 4, VERDICT
-    r3 item 5): wet faces are marked OPEN (never CORR) in the face codes
-    so the kernels preserve the body velocity the entry/mid-step apply
-    imposed; rk2 applies the forcing per projection STAGE like the jnp
-    path. Interpret-mode trajectory parity, spinning sphere."""
-    sim_ref = _rotating_sphere_sim(integrator)
-    assert sim_ref.ibm is not None and sim_ref.ibm.wet is not None
-    sim_fused = _rotating_sphere_sim(integrator, use_pallas=True)
-    assert sim_fused._fused3d_ok()
-
-    st0 = sim_ref.initial_state()
-    a, da = sim_ref.run_scan(st0, 8)
-    b, db_ = sim_fused.run_scan(st0, 8)
-    for ca, cb in zip(a.u, b.u):
-        np.testing.assert_allclose(
-            np.asarray(cb), np.asarray(ca), rtol=2e-5, atol=2e-6,
-            err_msg=integrator,
-        )
-    np.testing.assert_allclose(
-        np.asarray(b.p), np.asarray(a.p), rtol=2e-4, atol=2e-5,
-        err_msg=integrator,
-    )
-    np.testing.assert_allclose(
-        np.asarray(db_.max_div), np.asarray(da.max_div),
-        rtol=1e-3, atol=1e-6, err_msg=integrator,
-    )
-    np.testing.assert_allclose(
-        np.asarray(db_.max_cfl), np.asarray(da.max_cfl),
-        rtol=1e-4, atol=1e-7, err_msg=integrator,
-    )
-    # the spin actually moved fluid
-    assert float(np.abs(np.asarray(b.u[0])).max()) > 1e-3
-
-
-def test_stationary_ibm_fused_rk2_matches_jnp():
-    """rk2 + stationary IBM through the fused step: the half-stage now
-    applies the direct forcing before its projection (the jnp rk2 path
-    calls _project -> ibm.apply per stage; round-4 fix)."""
-    from navierstokessolver_tpu.cases import make_case
-
-    case = make_case(
-        "sphere", shape=(32, 16, 16), lengths=(8.0, 4.0, 4.0),
-        center=(2.0, 2.03, 1.97), re=100.0, poisson_method="mg",
-        poisson_extrapolate=0.0, ibm=True, integrator="rk2",
-    )
-    sim = case.sim
-    assert sim.ibm is not None and sim.ibm.fused_ok
-    st0 = case.initial_state()
-    ref, dref = sim.run_scan(st0, 6)
-    simp = dataclasses.replace(
-        sim, params=dataclasses.replace(sim.params, use_pallas=True),
-        pallas_interpret=True,
-    )
-    assert simp._fused3d_ok()
-    out, d = simp.run_scan(st0, 6)
-    for a in range(3):
-        np.testing.assert_allclose(
-            np.asarray(out.u[a]), np.asarray(ref.u[a]), atol=2e-5
-        )
-    np.testing.assert_array_equal(
-        np.asarray(d.poisson_iters), np.asarray(dref.poisson_iters)
-    )

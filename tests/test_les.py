@@ -161,13 +161,7 @@ def test_les_gates_fused_paths_and_hashes():
     from navierstokessolver_tpu import io as io_mod
 
     case = make_case("cavity", shape=(32, 32))
-    sim = dataclasses.replace(
-        case.sim,
-        params=dataclasses.replace(case.sim.params, use_pallas=True),
-        les=LESConfig(cs=0.17),
-    )
-    assert not sim._fused2d_ok()
-    assert not sim._pallas_ok()
+    sim = dataclasses.replace(case.sim, les=LESConfig(cs=0.17))
     h0 = io_mod.config_hash(sim.grid, sim.params)
     h1 = io_mod.config_hash(sim.grid, sim.params, les=sim.les)
     assert h0 != h1

@@ -216,9 +216,9 @@ def _steady_cylinder_cd(nx, ny, sharp):
 def test_cut_cell_cd_self_convergence():
     """Both-sides-sharp (IBM velocity + cut-cell pressure) steady Re=40
     drag self-converges under refinement and lands in the confined-
-    cylinder bracket. CI-light companion of the VERDICT r2 item 8 study;
-    the full Re=200 sharp-vs-staircase convergence table (256x128 within
-    1% of 512x256) is the TPU run recorded in docs/PARITY.md. (A short
+    cylinder bracket. CI-light companion of the full Re=200
+    sharp-vs-staircase convergence study (256x128 within 1% of 512x256).
+    (A short
     Re=40 run still carries impulsive-start transient at coarse grids --
     6 cells/D -- so this asserts self-consistency, not superiority.)"""
     cd_sharp_c = _steady_cylinder_cd(128, 64, True)

@@ -376,10 +376,8 @@ def test_cutcell_sharp_pressure_sharded_3d_pencil():
 @requires_8
 def test_timedep_bc_values_sharded():
     """Time-dependent BC VALUES under GSPMD: sharded runs resolve the
-    callables inside the jitted scan exactly like unsharded ones and
-    take the jnp GSPMD step (traced values gate the sharded fused tiers
-    off -- solver._fused3d_sharded_ok); 1-vs-8 parity on the
-    oscillating-lid cavity, t carried and equal."""
+    callables inside the jitted scan exactly like unsharded ones; 1-vs-8
+    parity on the oscillating-lid cavity, t carried and equal."""
     import jax.numpy as jnp
 
     from navierstokessolver_tpu.bcs import BCSpec, no_slip_box
@@ -484,13 +482,8 @@ def test_dctcg_halo_3d_matches_single_device():
 
 @requires_8
 def test_timedep_masked_sharded_falls_back_to_jnp():
-    """Obstacle masks + time-dependent BC values under sharding: the
-    round-5 sharded timedep FUSED gate must reject the combination
-    (stored-plane refresh and the CFL reduction are not mask-aware
-    under sharding), and the jnp GSPMD fallback must still match
-    single-device."""
-    import dataclasses
-
+    """Obstacle masks + time-dependent BC values under sharding: the GSPMD
+    step must match single-device."""
     import jax.numpy as jnp
 
     from navierstokessolver_tpu.bcs import BCSpec, no_slip_box
@@ -510,12 +503,7 @@ def test_timedep_masked_sharded_falls_back_to_jnp():
     sim = Simulation.build(grid, bcs, params, solid=solid)
     ref, _ = sim.run_scan(sim.initial_state(), 6)
     mesh = make_mesh(4)
-    simp = dataclasses.replace(
-        sim, params=dataclasses.replace(params, use_pallas=True),
-        pallas_interpret=True,
-    )
-    sim_sh = sharded_simulation(simp, mesh)
-    assert not sim_sh._fused3d_sharded_timedep_ok()   # masked: gate shut
+    sim_sh = sharded_simulation(sim, mesh)
     out, _ = sim_sh.run_scan(
         shard_state(sim.initial_state(), mesh, sim.grid), 6
     )

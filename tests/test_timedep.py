@@ -2,8 +2,6 @@
 the scan): exact semi-discrete Womersley oracle, oscillating-lid
 equivalence with per-step static re-builds, checkpoint round-trip."""
 
-import dataclasses
-
 import jax.numpy as jnp
 import numpy as np
 
@@ -132,138 +130,17 @@ def test_timedep_checkpoint_roundtrip():
         )
 
 
-def test_timedep_gates_fused_paths():
-    case = make_case("pulsatile_channel", shape=(8, 16))
-    sim = dataclasses.replace(
-        case.sim,
-        params=dataclasses.replace(case.sim.params, use_pallas=True),
-    )
-    assert sim._time_dependent()
-    assert not sim._fused2d_ok()
-
-
-def test_timedep_forcing_keeps_fused_3d():
-    """Round 4: a run whose ONLY time dependence is the body FORCE keeps
-    the fused 3D whole-step -- the per-step resolved force streams as
-    traced per-face forcing fields through the predictor kernel.
-    Interpret-mode trajectory parity vs the jnp step (t carried by both);
-    BC time dependence still gates the kernels off."""
-    import jax.numpy as jnp
-
-    from navierstokessolver_tpu.bcs import BCSpec, no_slip_box
-    from navierstokessolver_tpu.grid import GridSpec
-    from navierstokessolver_tpu.ops.poisson import PoissonConfig
-    from navierstokessolver_tpu.solver import SimParams, Simulation
-
-    g = GridSpec(shape=(16, 16, 16), lengths=(1.0, 1.0, 1.0))
-    bcs = no_slip_box(g)
-    params = SimParams(
-        dt=2e-3, nu=5e-3,
-        poisson=PoissonConfig(method="mg", tol=1e-6, max_iters=60),
-    )
-    prof = jnp.asarray(
-        np.cos(2.0 * np.pi * (np.arange(16) + 0.5) / 16.0)[None, :, None],
-        jnp.float32,
-    )
-    forcing = (lambda t: (0.05 * jnp.sin(8.0 * t) + 0.02) * prof,
-               None, None)
-    sim_ref = Simulation.build(g, bcs, params, forcing=forcing)
-    st0 = sim_ref.initial_state()
-    assert st0.t is not None          # time rides the scan carry
-    a, da = sim_ref.run_scan(st0, 6)
-
-    p_fused = dataclasses.replace(params, use_pallas=True)
-    sim_fused = dataclasses.replace(
-        Simulation.build(g, bcs, p_fused, forcing=forcing),
-        pallas_interpret=True,
-    )
-    b, db_ = sim_fused.run_scan(st0, 6)
-    for ca, cb in zip(a.u, b.u):
-        np.testing.assert_allclose(
-            np.asarray(cb), np.asarray(ca), rtol=2e-5, atol=2e-6
-        )
-    np.testing.assert_allclose(float(b.t), float(a.t), rtol=1e-6)
-    # the oscillating force actually drove flow
-    assert float(np.abs(np.asarray(b.u[0])).max()) > 1e-4
-
-    # BC time dependence keeps the fused step too (round 4, SMEM value
-    # hoist; full parity in test_oscillating_lid_3d_fused_parity) --
-    # smoke that the dispatch runs clean
-    bcs_td = dict(bcs)
-    bcs_td[(0, 1)] = BCSpec.wall((0.0, lambda t: 0.1 * jnp.sin(t), 0.0))
-    sim_bc = dataclasses.replace(
-        Simulation.build(g, bcs_td, p_fused),
-        pallas_interpret=True,
-    )
-    st_bc = sim_bc.initial_state()
-    out_bc, _ = sim_bc.run_scan(st_bc, 2)
-    assert np.isfinite(np.asarray(out_bc.u[1])).all()
-
-
-def _fused_timedep_parity(sim, n_steps=5, atol_u=3e-5, atol_p=5e-4):
-    """jnp timedep run vs the SAME sim with use_pallas=True (interpret
-    mode): the fused 3D whole-step streams the per-step resolved BC
-    values through the kernels' SMEM scalar vector
-    (pallas_kernels._hoist_tables) and refreshes the carried own-axis
-    Dirichlet faces at entry. p is only determined up to the iterative
-    tolerance; u parity is the real assertion."""
-    import navierstokessolver_tpu.bcs as bcs_mod
-
-    ref, _ = sim.run_scan(sim.initial_state(), n_steps)
-    pf = dataclasses.replace(sim.params, use_pallas=True)
-    sim_f = dataclasses.replace(sim, params=pf, pallas_interpret=True)
-    probe = dataclasses.replace(
-        sim_f, bcs=bcs_mod.resolve_bcs(sim_f.bcs, jnp.float32(0.0))
-    )
-    assert probe._fused3d_ok(), "traced-BC fused gate unexpectedly closed"
-    out, _ = sim_f.run_scan(sim_f.initial_state(), n_steps)
-    for c in range(3):
-        np.testing.assert_allclose(
-            np.asarray(out.u[c]), np.asarray(ref.u[c]), atol=atol_u
-        )
-    np.testing.assert_allclose(np.asarray(out.p), np.asarray(ref.p),
-                               atol=atol_p)
-    if out.theta is not None and ref.theta is not None:
-        np.testing.assert_allclose(
-            np.asarray(out.theta), np.asarray(ref.theta), atol=atol_u
-        )
-    np.testing.assert_allclose(float(out.t), float(ref.t), rtol=1e-6)
-
-
-def test_oscillating_lid_3d_fused_parity():
-    """Oscillating lid (tangential wall value = cos(2 pi t)) keeps the
-    fused 3D whole-step: euler, then rk2 + CFL-adaptive dt."""
-    grid = GridSpec(shape=(16, 16, 16), lengths=(1.0, 1.0, 1.0))
-
-    def lid(t):
-        return jnp.cos(2.0 * jnp.pi * t)
-
-    bcs = no_slip_box(grid)
-    bcs[(0, 1)] = BCSpec.wall((0.0, lid, 0.0))
-    params = SimParams(
-        dt=2e-3, nu=0.01,
-        poisson=PoissonConfig(method="cg", tol=1e-6, max_iters=500),
-    )
-    _fused_timedep_parity(Simulation.build(grid, bcs, params))
-    params_rk2 = dataclasses.replace(params, integrator="rk2", cfl=0.4)
-    _fused_timedep_parity(Simulation.build(grid, bcs, params_rk2))
-
-
 def test_traced_convective_phase_speed_falls_back_to_jnp():
-    """Advisor r4 (medium): a CALLABLE convective phase speed resolves to
-    a tracer inside the jitted scan. The fused gate must reject it (the
-    kernels bake the speed as a compile-time float) and the jnp step must
-    accept the traced scalar (apply_convective_outlets keeps it
-    symbolic). A constant callable must reproduce the static run
-    exactly."""
+    """A CALLABLE convective phase speed resolves to a tracer inside the
+    jitted scan; the step must accept the traced scalar
+    (apply_convective_outlets keeps it symbolic). A constant callable must
+    reproduce the static run exactly."""
     from navierstokessolver_tpu.bcs import BCKind, BCSpec, no_slip_box
-    from navierstokessolver_tpu.ops import pallas_kernels as pk
 
     g = GridSpec(shape=(16, 16, 16), lengths=(1.0, 1.0, 1.0))
     params = SimParams(
         dt=2e-3, nu=0.01,
         poisson=PoissonConfig(method="cg", tol=1e-6, max_iters=400),
-        use_pallas=True,
     )
     speed = 0.7
 
@@ -273,29 +150,11 @@ def test_traced_convective_phase_speed_falls_back_to_jnp():
         bcs[(0, 1)] = BCSpec(BCKind.CONVECTIVE, (conv_speed_entry,))
         return bcs
 
-    sim_td = dataclasses.replace(
-        Simulation.build(g, bcs_with(lambda t: speed + 0.0 * t), params),
-        pallas_interpret=True,
-    )
+    sim_td = Simulation.build(g, bcs_with(lambda t: speed + 0.0 * t), params)
     assert sim_td._time_dependent()
-    # the fused gate must be CLOSED for the resolved (traced-speed)
-    # clone -- check under tracing, where the speed is a real tracer
-    import jax
-
-    import navierstokessolver_tpu.bcs as bcs_mod
-
-    def gate(t):
-        resolved = bcs_mod.resolve_bcs(sim_td.bcs, t)
-        assert not pk._scalar_bcs_all_axes(resolved, allow_traced=True)
-        return t
-
-    jax.make_jaxpr(gate)(jnp.float32(0.0))
     out_td, _ = sim_td.run_scan(sim_td.initial_state(), 4)
 
-    sim_st = dataclasses.replace(
-        Simulation.build(g, bcs_with(speed), params),
-        pallas_interpret=True,
-    )
+    sim_st = Simulation.build(g, bcs_with(speed), params)
     out_st, _ = sim_st.run_scan(sim_st.initial_state(), 4)
     for c in range(3):
         np.testing.assert_allclose(
@@ -303,81 +162,17 @@ def test_traced_convective_phase_speed_falls_back_to_jnp():
         )
 
 
-def test_hoist_dedupes_on_raw_bc_value():
-    """Advisor r4 (low): one traced lid value must occupy ONE SMEM slot,
-    not one per derived 2*v tangential-ghost tracer -- _tangential_ghost
-    defers the reflection factor to the marker's static scale and
-    _hoist_tables dedupes on the raw resolved scalar."""
-    import jax
-
-    from navierstokessolver_tpu.bcs import resolve_bcs
-    from navierstokessolver_tpu.grid import GridSpec as GS
-    from navierstokessolver_tpu.ops import pallas_kernels as pk
-
-    g = GS(shape=(8, 8, 8), lengths=(1.0, 1.0, 1.0))
-
-    def probe(t):
-        bcs = no_slip_box(g)
-        bcs[(2, 1)] = BCSpec.wall((lambda tt: jnp.cos(tt), 0.0, 0.0))
-        b = resolve_bcs(bcs, t)
-        tg, own = pk._ghost_tables(g, b)
-        parts = []
-        tg_k, own_k = pk._hoist_tables(tg, own, parts)
-        # exactly one distinct traced scalar: the resolved lid value
-        assert len(parts) == 1, len(parts)
-        # tangential markers carry the x2 reflection as a static scale
-        tang = [m for _, m in tg_k.values() if pk._is_sc_marker(m)]
-        assert tang and all(len(m) == 3 and m[2] == 2.0 for m in tang)
-        # resolve round-trip: marker -> 2 * raw
-        sc = jnp.stack(parts)
-        tg_r, own_r = pk._resolve_tables(tg_k, own_k, sc)
-        return tg_r[(0, 2, 1)][1] - 2.0 * parts[0]
-
-    zero = jax.jit(probe)(jnp.float32(0.3))
-    np.testing.assert_allclose(float(zero), 0.0, atol=1e-7)
-
-
-def test_vel_inv_internal_respects_face_masks():
-    """Advisor r4 (low): the comp-2 hi-face Dirichlet contribution to the
-    CFL reduction must honor an obstacle that closes that boundary face
-    (the jnp route's post-BC field holds 0 there)."""
-    from navierstokessolver_tpu.ops import pallas_kernels as pk
-
-    g = GridSpec(shape=(8, 8, 8), lengths=(1.0, 1.0, 1.0))
-    bcs = no_slip_box(g)
-    bcs[(2, 1)] = BCSpec.wall((0.0, 0.0, 0.8))   # normal Dirichlet value
-    u0 = tuple(jnp.zeros(s, jnp.float32) for s in
-               ((9, 8, 8), (8, 9, 8), (8, 8, 9)))
-    iu = pk.to_internal_3d(g, u0)
-    h2 = g.spacing[2]
-    # unmasked: the lane-elided hi face contributes |0.8|/h2
-    v_open = float(pk.vel_inv_internal_3d(g, bcs, iu))
-    np.testing.assert_allclose(v_open, 0.8 / h2, rtol=1e-6)
-    # fully closed hi-z boundary face: contribution vanishes
-    fm = [jnp.ones(s, jnp.float32) for s in
-          ((9, 8, 8), (8, 9, 8), (8, 8, 9))]
-    fm[2] = fm[2].at[:, :, -1].set(0.0)
-    v_closed = float(pk.vel_inv_internal_3d(g, bcs, iu, tuple(fm)))
-    assert v_closed < 1e-6
-    # partially open face keeps the full value (max over the plane)
-    fm[2] = fm[2].at[0, 0, -1].set(1.0)
-    v_part = float(pk.vel_inv_internal_3d(g, bcs, iu, tuple(fm)))
-    np.testing.assert_allclose(v_part, 0.8 / h2, rtol=1e-6)
-
-
 def test_timedep_run_scan_zero_steps():
-    """Advisor r4 (low): n_steps=0 must not trace diags.dt[-1] in the
-    timedep fused-scan branch."""
+    """n_steps=0 on a time-dependent run returns the initial state and an
+    empty diagnostics stack."""
     grid = GridSpec(shape=(16, 16, 16), lengths=(1.0, 1.0, 1.0))
     bcs = no_slip_box(grid)
     bcs[(0, 1)] = BCSpec.wall((0.0, lambda t: jnp.cos(t), 0.0))
     params = SimParams(
         dt=2e-3, nu=0.01,
         poisson=PoissonConfig(method="cg", tol=1e-6, max_iters=200),
-        use_pallas=True,
     )
-    sim = dataclasses.replace(Simulation.build(grid, bcs, params),
-                              pallas_interpret=True)
+    sim = Simulation.build(grid, bcs, params)
     st0 = sim.initial_state()
     out, diags = sim.run_scan(st0, 0)
     for c in range(3):

@@ -89,3 +89,30 @@ def test_energy_spectrum_3d_single_mode_and_parseval():
     assert E.max() / E.sum() > 0.99
     np.testing.assert_allclose(E.sum(), total_kinetic_energy(g, u),
                                rtol=1e-3)
+
+
+def test_kolmogorov_laminar_balance_2d():
+    """Low-Re Kolmogorov flow relaxes to the exact laminar profile
+    u = A/(nu k^2) sin(k y) (the spatially-varying-forcing oracle)."""
+    case = make_case("kolmogorov", shape=(32, 32), re=1.0, k_forcing=2)
+    sim = case.sim
+    nu, kf, amp = sim.params.nu, 2, 1.0
+    st = case.initial_state()
+    # many viscous times of the forcing scale: e^-8 of the transient left
+    n = int(8.0 / (nu * kf * kf) / sim.params.dt)
+    st, diag = sim.run_scan(st, n)
+    yc = np.asarray(sim.grid.cell_centers(1))
+    # steady amplitude of the DISCRETE operator: A / (nu * lap_h-eigenvalue
+    # of sin(k y)); the continuum A/(nu k^2) differs by (kh)^2/12 ~ 1.3%
+    h = sim.grid.spacing[1]
+    lam_h = (2.0 - 2.0 * np.cos(kf * h)) / (h * h)
+    u_disc = amp / (nu * lam_h)
+    exact = u_disc * np.sin(kf * yc)
+    u = np.asarray(st.u[0])[: sim.grid.shape[0], :]
+    err = np.max(np.abs(u - exact[None, :])) / u_disc
+    assert err < 2e-3, err
+    # ... and the continuum profile to its second-order error
+    u_lam = amp / (nu * kf * kf)
+    err_c = np.max(np.abs(u - (u_lam * np.sin(kf * yc))[None, :])) / u_lam
+    assert err_c < 0.02, err_c
+    assert np.isfinite(float(diag.max_div[-1]))
